@@ -12,8 +12,8 @@ and reports, per threshold:
   one, and the trigger is replayed offline on the recorded trace; the replay
   uses post-step latents, one Euler update later than the in-graph signal —
   both approximations documented in the output),
-- predicted speedup = steps / computed (measured property: skipped steps are
-  free — benchmarks/adaptive_cache_ab.json, 1.861x at 16/30 vs ideal 1.875),
+- predicted speedup = steps / computed (skipped steps cost one Euler update,
+  so end-to-end time tracks the computed-step count),
 - MEASURED OCR-judge character-accuracy delta and pixel MAD vs the uncached
   image at the same seed (each threshold is a distinct compiled graph — the
   threshold is static in the scan — so a sweep pays one compile per point;
@@ -95,11 +95,11 @@ def main(argv=None):
 
     import jax.numpy as jnp
 
-    from reptext_tpu.configs import (
+    from reptext.configs import (
         CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
     )
-    from reptext_tpu.conditioning import TextLine, build_conditions
-    from reptext_tpu.pipelines import FluxRepTextPipeline
+    from reptext.conditioning import TextLine, build_conditions
+    from reptext.pipelines import FluxRepTextPipeline
 
     real = args.checkpoint_dir is not None
     demo = args.demo_ckpt is not None and not real
@@ -116,7 +116,7 @@ def main(argv=None):
     common = dict(compute_dtype=jnp.bfloat16 if real else jnp.float32,
                   param_dtype=jnp.bfloat16 if real else jnp.float32)
     if real:
-        from reptext_tpu.io.checkpoint import load_pipeline_params
+        from reptext.io.checkpoint import load_pipeline_params
 
         params = load_pipeline_params(args.checkpoint_dir)
         cfgs = dict(flux_cfg=FluxConfig(), cn_cfg=ControlNetConfig(),
@@ -125,7 +125,7 @@ def main(argv=None):
         # trained demo checkpoint (overfit_e2e geometry): the drift trace and
         # the recommended threshold come from REAL trained dynamics
         from examples.overfit_e2e import demo_cn_cfg, demo_flux_cfg, demo_vae_cfg
-        from reptext_tpu.io.checkpoint import load_pipeline_params
+        from reptext.io.checkpoint import load_pipeline_params
 
         saved = load_pipeline_params(args.demo_ckpt)
         params = None  # random clip/t5 init; flux/cn/vae replaced below
@@ -154,7 +154,7 @@ def main(argv=None):
         from examples.overfit_e2e import (
             TRAIN_WORDS, build_overfit_set, precompute_batch, sample_and_score,
         )
-        from reptext_tpu.eval import ocr as ocr_judge
+        from reptext.eval import ocr as ocr_judge
 
         judge = ocr_judge.load_judge_ensemble()
         samples = build_overfit_set(size, words=TRAIN_WORDS)
@@ -231,7 +231,7 @@ def main(argv=None):
     lines = [TextLine("مرحبا", (size // 8, size // 4), font_size=font),
              TextLine("Hi", (size // 8, size // 2), font_size=font)]
     conds = build_conditions(lines, size, size)
-    from reptext_tpu.cli import _tokenize
+    from reptext.cli import _tokenize
 
     clip_ids, t5_ids = _tokenize("a street sign in city, 'Hi'",
                                  pipe.clip.config, pipe.t5.config,
@@ -249,7 +249,7 @@ def main(argv=None):
 
     judge = texts = None
     try:
-        from reptext_tpu.eval import ocr as ocr_judge
+        from reptext.eval import ocr as ocr_judge
 
         judge = ocr_judge.load_judge_ensemble()
         texts = [ln.text for ln in lines]

@@ -9,7 +9,7 @@ This harness builds a synthetic HF snapshot with the exact full-model
 geometry and key names — FLUX.1-dev transformer (19 double + 38 single,
 24x128 heads, bf16, sharded safetensors) and the RepText ControlNet at its
 published from_transformer depth (4+10, reference
-RepText/controlnet_flux.py:182-214) — runs `python -m reptext_tpu.io.
+RepText/controlnet_flux.py:182-214) — runs `python -m reptext.io.
 convert_cli`, restores a leaf to prove readability, and reports sizes, wall
 times, and peak RSS as one JSON line.
 
@@ -82,9 +82,9 @@ def main() -> int:
 
     import synth_checkpoints as synth
 
-    from reptext_tpu.configs import ControlNetConfig, FluxConfig
-    from reptext_tpu.io import convert_cli
-    from reptext_tpu.io.checkpoint import LAYOUT_VERSION, checkpoint_layout_version
+    from reptext.configs import ControlNetConfig, FluxConfig
+    from reptext.io import convert_cli
+    from reptext.io.checkpoint import LAYOUT_VERSION, checkpoint_layout_version
 
     scratch = os.path.abspath(args.scratch)
     flux_dir = os.path.join(scratch, "transformer")

@@ -28,8 +28,8 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from reptext_tpu.conditioning import TextLine, build_conditions  # noqa: E402
-from reptext_tpu.conditioning.canny import canny_edges  # noqa: E402
+from reptext.conditioning import TextLine, build_conditions  # noqa: E402
+from reptext.conditioning.canny import canny_edges  # noqa: E402
 
 
 def _dilate(mask: np.ndarray, it: int = 1) -> np.ndarray:
@@ -109,7 +109,7 @@ def main():
     # background must score ~0 on ink correlation; a NOISE region pins each
     # metric's effective floor (VERDICT r2 weak #2: edge_iou's floor is high
     # — ~0.6 — which is exactly why edge_f1 and the OCR judge
-    # (reptext_tpu/eval/ocr.py) exist; the noise row makes the limitation
+    # (reptext/eval/ocr.py) exist; the noise row makes the limitation
     # visible instead of assumed away).
     conds = build_conditions(
         [TextLine("مرحبا", (40, 60), font_size=56), TextLine("Test", (40, 150), font_size=56)],

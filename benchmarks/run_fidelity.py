@@ -4,8 +4,7 @@ Closes the loop BASELINE.md asks for ("OCR glyph accuracy" row): generate
 images through the real pipeline at a fixed seed/config, score every text
 region with the OCR-free fidelity metrics (benchmarks/glyph_fidelity.py),
 and record the scores in ``results/fidelity.json`` so accuracy is tracked
-across commits the same way throughput is (bench.py picks the file up into
-its JSON line).
+across commits.
 
 With random weights (this environment has no converted FLUX checkpoint) the
 scores are a wiring/regression tracker, not a model-quality claim: the
@@ -46,11 +45,11 @@ def main(argv=None):
 
     import jax.numpy as jnp
 
-    from reptext_tpu.configs import (
+    from reptext.configs import (
         CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
     )
-    from reptext_tpu.conditioning import TextLine, build_conditions
-    from reptext_tpu.pipelines import FluxRepTextPipeline
+    from reptext.conditioning import TextLine, build_conditions
+    from reptext.pipelines import FluxRepTextPipeline
 
     real = args.checkpoint_dir is not None
     size = 1024 if real else H
@@ -62,7 +61,7 @@ def main(argv=None):
         controlnet_conditioning_step=steps,  # reference op-point: CN all steps
     )
     if real:
-        from reptext_tpu.io.checkpoint import load_pipeline_params
+        from reptext.io.checkpoint import load_pipeline_params
 
         params = load_pipeline_params(args.checkpoint_dir)
         pipe = FluxRepTextPipeline.create(
@@ -82,7 +81,7 @@ def main(argv=None):
         TextLine("Hi", (size // 8, size // 2), font_size=font),
     ]
     conds = build_conditions(lines, size, size)
-    from reptext_tpu.cli import _tokenize
+    from reptext.cli import _tokenize
 
     clip_ids, t5_ids = _tokenize(
         "a street sign in city, 'Hi'", pipe.clip.config, pipe.t5.config,
@@ -151,12 +150,12 @@ def main(argv=None):
         print(f"line {i}: sampled={sampled} cached={cached} "
               f"perfect={perfect} flat={flat}")
 
-    # OCR judge (reptext_tpu/eval/ocr.py, frozen weights in benchmarks/):
+    # OCR judge (reptext/eval/ocr.py, frozen weights in benchmarks/):
     # character accuracy per region — the discriminative accuracy metric
     # (floor ~0 on noise, ~1 on perfect renders; see ocr_judge_eval.json).
     ocr_scores = {}
     try:
-        from reptext_tpu.eval import ocr as ocr_judge
+        from reptext.eval import ocr as ocr_judge
 
         judge = ocr_judge.load_judge_ensemble()
         texts = [ln.text for ln in lines]

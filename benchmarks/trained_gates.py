@@ -47,10 +47,10 @@ def main(argv=None) -> int:
         TRAIN_WORDS, build_overfit_set, demo_cn_cfg, demo_flux_cfg,
         demo_vae_cfg, precompute_batch, sample_and_score,
     )
-    from reptext_tpu.configs import CLIPConfig, PipelineConfig, T5Config
-    from reptext_tpu.eval import ocr as ocr_judge
-    from reptext_tpu.io.checkpoint import load_pipeline_params
-    from reptext_tpu.pipelines import FluxRepTextPipeline
+    from reptext.configs import CLIPConfig, PipelineConfig, T5Config
+    from reptext.eval import ocr as ocr_judge
+    from reptext.io.checkpoint import load_pipeline_params
+    from reptext.pipelines import FluxRepTextPipeline
 
     saved = load_pipeline_params(args.params_cache)
     judge = ocr_judge.load_judge_ensemble()

@@ -20,11 +20,11 @@ import jax.numpy as jnp
 import numpy as np
 from PIL import Image
 
-from reptext_tpu.configs import (
+from reptext.configs import (
     CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
 )
-from reptext_tpu.conditioning import TextLine, build_conditions
-from reptext_tpu.pipelines import FluxRepTextPipeline
+from reptext.conditioning import TextLine, build_conditions
+from reptext.pipelines import FluxRepTextPipeline
 
 
 def build_pipeline(size: int = 512, steps: int = 20, tiny: bool = True,
@@ -36,7 +36,7 @@ def build_pipeline(size: int = 512, steps: int = 20, tiny: bool = True,
     mk = (lambda c: c.tiny()) if tiny else (lambda c: c)
     params = None
     if checkpoint_dir:
-        from reptext_tpu.io.checkpoint import load_pipeline_params
+        from reptext.io.checkpoint import load_pipeline_params
         params = load_pipeline_params(checkpoint_dir)
     return FluxRepTextPipeline.create(
         flux_cfg=mk(FluxConfig()), cn_cfg=mk(ControlNetConfig()),
@@ -62,7 +62,7 @@ def predict(
     )
     # demo tokenization (hash ids); with a checkpoint dir, use the CLI which
     # loads the real tokenizers
-    from reptext_tpu.cli import _tokenize
+    from reptext.cli import _tokenize
     clip_cfg = pipe.clip.config
     t5_cfg = pipe.t5.config
     clip_ids, t5_ids = _tokenize(f"{prompt}, '{text}'", clip_cfg, t5_cfg, None)

@@ -8,7 +8,7 @@ the rest of the photo intact, under true CFG with the default negative prompt.
 Run (demo mode, random weights, synthetic photo):
     python examples/inpaint.py
 With converted real weights:
-    python -m reptext_tpu.cli --mode inpaint --checkpoint-dir CKPT \
+    python -m reptext.cli --mode inpaint --checkpoint-dir CKPT \
         --image photo.png --mask mask.png --text "مرحبا" --position 100,200
 """
 
@@ -23,12 +23,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np
 from PIL import Image, ImageDraw
 
-from reptext_tpu.configs import (
+from reptext.configs import (
     CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
 )
-from reptext_tpu.conditioning import TextLine, build_conditions
-from reptext_tpu.pipelines import DEFAULT_NEGATIVE_PROMPT, FluxRepTextInpaintPipeline
-from reptext_tpu.utils.image import resize_to_multiple
+from reptext.conditioning import TextLine, build_conditions
+from reptext.pipelines import DEFAULT_NEGATIVE_PROMPT, FluxRepTextInpaintPipeline
+from reptext.utils.image import resize_to_multiple
 
 
 def build_inpaint_pipeline(size: int = 256, steps: int = 4,
@@ -67,8 +67,8 @@ def inpaint_text(
     conds = build_conditions(
         [TextLine(text, position, font_size=font_size)], w, h
     )
-    from reptext_tpu.cli import _tokenize
-    from reptext_tpu.text import pad_to_common_length
+    from reptext.cli import _tokenize
+    from reptext.text import pad_to_common_length
 
     clip_ids, t5_ids = _tokenize(f"{prompt}, '{text}'",
                                  pipe.clip.config, pipe.t5.config, None)

@@ -24,7 +24,7 @@ Protocol (memorization, the honest small-compute test):
 
 Expected result: char_accuracy_trained >> char_accuracy_random ~ noise
 floor, and edge-IoU separation on the same crops. Artifact:
-benchmarks/overfit_e2e.json (+ .png sample grid), consumed by bench.py.
+benchmarks/overfit_e2e.json (+ .png sample grid).
 
 The reference has no training code or accuracy metric at all
 (SURVEY.md §0, §6) — this is the framework's own proof obligation.
@@ -53,14 +53,14 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from reptext_tpu.conditioning import TextLine, build_conditions
-from reptext_tpu.configs import (
+from reptext.conditioning import TextLine, build_conditions
+from reptext.configs import (
     CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
 )
-from reptext_tpu.ops.latents import pack_latents, prepare_latent_image_ids
-from reptext_tpu.pipelines import FluxRepTextPipeline
-from reptext_tpu.sampling.train_controlnet import make_joint_train_step
-from reptext_tpu.utils.image import preprocess_images
+from reptext.ops.latents import pack_latents, prepare_latent_image_ids
+from reptext.pipelines import FluxRepTextPipeline
+from reptext.sampling.train_controlnet import make_joint_train_step
+from reptext.utils.image import preprocess_images
 
 SIZE = 128
 
@@ -79,7 +79,7 @@ def synth_corpus(n: int, seed: int = 5) -> List[str]:
     """n UNIQUE synthetic words (Arabic / upper / lower / digits, 2-5 chars)
     for the corpus-scaling protocol (VERDICT r4 #7). Deterministic in seed;
     disjointness between holdout and train comes from slicing one pool."""
-    from reptext_tpu.eval.ocr import ARABIC, DIGITS, LATIN, LATIN_LOWER
+    from reptext.eval.ocr import ARABIC, DIGITS, LATIN, LATIN_LOWER
 
     rng = np.random.default_rng(seed)
     pools = [ARABIC, LATIN, LATIN_LOWER, DIGITS]
@@ -211,15 +211,15 @@ def precompute_batch(pipe: FluxRepTextPipeline, samples: List[Dict]) -> Dict:
         lat = pipe._encode_scaled(jnp.asarray(preprocess_images(s["target"])), r_img)
         x0_l.append(pack_latents(lat.transpose(0, 3, 1, 2))[0])
 
-    from reptext_tpu.cli import _tokenize
+    from reptext.cli import _tokenize
 
     clip_ids, t5_ids = _tokenize(PROMPT, pipe.clip.config, pipe.t5.config, None)
     prompt_embeds, pooled = pipe.encode_prompt(clip_ids, t5_ids)
     b = len(samples)
     guidance = (jnp.full((b,), cfg.guidance_scale, jnp.float32)
                 if pipe.flux.config.guidance_embeds else None)
-    from reptext_tpu.eval.ocr import CHAR_TO_ID, MAX_LABEL
-    from reptext_tpu.sampling.ocr_loss import aspect_box, glyph_ink_bbox
+    from reptext.eval.ocr import CHAR_TO_ID, MAX_LABEL
+    from reptext.sampling.ocr_loss import aspect_box, glyph_ink_bbox
 
     ocr_boxes = np.zeros((b, 4), np.float32)
     ocr_labels = np.zeros((b, MAX_LABEL), np.int32)
@@ -271,7 +271,7 @@ def train_flow(pipe: FluxRepTextPipeline, batch: Dict, steps: int,
     opt_state = tx.init(params)
     perceptual, frozen = None, ()
     if ocr_loss_weight > 0.0:
-        from reptext_tpu.ops.latents import unpack_latents
+        from reptext.ops.latents import unpack_latents
 
         cfg = pipe.pipe_cfg
         vcfg = pipe.vae.config
@@ -306,7 +306,7 @@ def sample_and_score(pipe: FluxRepTextPipeline, samples: List[Dict],
                      batch: Dict, steps_sample: int, judge) -> Dict:
     """Sample every overfit pair at a fixed seed; OCR + edge metrics."""
     from benchmarks.glyph_fidelity import score_region
-    from reptext_tpu.eval import ocr as ocr_judge
+    from reptext.eval import ocr as ocr_judge
 
     images, crops, texts, ious = [], [], [], []
     for i, s in enumerate(samples):
@@ -363,7 +363,7 @@ def run_corpus_scaling(args) -> int:
 
     random_params = {"flux": pipe.params["flux"],
                      "controlnet": pipe.params["controlnet"]}
-    from reptext_tpu.eval import ocr as ocr_judge
+    from reptext.eval import ocr as ocr_judge
 
     judge = ocr_judge.load_judge_ensemble()
     hold_batch = precompute_batch(pipe, holdout_samples)
@@ -399,7 +399,7 @@ def run_corpus_scaling(args) -> int:
              "corpus_scaling": curve}, indent=1))
         if args.params_cache:
             save_dir = f"{args.params_cache}_k{k}"
-            from reptext_tpu.io.checkpoint import save_pipeline_params
+            from reptext.io.checkpoint import save_pipeline_params
 
             save_pipeline_params(
                 {"vae": pipe.params["vae"], **trained}, save_dir)
@@ -415,7 +415,7 @@ def run_corpus_scaling(args) -> int:
         "train_steps_flux": args.steps_flux,
         "train_seed": args.train_seed,
         "corpus_scaling": curve,
-        # standard keys (bench.py carries these) = the LARGEST-K run
+        # standard keys = the LARGEST-K run
         "char_accuracy_trained": last["char_accuracy_train_subset16"],
         "char_accuracy_holdout": last["char_accuracy_holdout32"],
         "char_accuracy_random": round(res_rand["char_accuracy"], 4),
@@ -479,7 +479,7 @@ def main(argv=None) -> int:
 
     import os
 
-    from reptext_tpu.io.checkpoint import load_pipeline_params, save_pipeline_params
+    from reptext.io.checkpoint import load_pipeline_params, save_pipeline_params
 
     cached = (args.params_cache and
               os.path.isdir(os.path.join(args.params_cache, "flux")))
@@ -489,7 +489,7 @@ def main(argv=None) -> int:
         saved = load_pipeline_params(args.params_cache)
         pipe.params["vae"] = saved["vae"]
         # keep the previously measured PSNR (cache reuse skips VAE training;
-        # NaN here would leak into bench.py's strict-JSON line)
+        # NaN here would break the strict-JSON artifact)
         psnr = None
         if os.path.isfile("benchmarks/overfit_e2e.json"):
             prev = json.load(open("benchmarks/overfit_e2e.json")).get(
@@ -519,7 +519,7 @@ def main(argv=None) -> int:
               flush=True)
         judge_params = None
         if args.ocr_loss_weight > 0.0:
-            from reptext_tpu.eval.ocr import load_judge
+            from reptext.eval.ocr import load_judge
 
             judge_params = load_judge()
         trained = train_flow(pipe, batch, args.steps_flux,
@@ -535,7 +535,7 @@ def main(argv=None) -> int:
 
     print("[4/4] sampling + scoring (trained vs random)...", flush=True)
     try:
-        from reptext_tpu.eval import ocr as ocr_judge
+        from reptext.eval import ocr as ocr_judge
 
         judge = ocr_judge.load_judge_ensemble()
     except FileNotFoundError:

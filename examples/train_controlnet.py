@@ -2,7 +2,7 @@
 
 The reference ships no training code; its ControlNet carries the affordances
 (gradient checkpointing RepText/controlnet_flux.py:321-340, from_transformer
-:182-214). This example wires the full TPU-native recipe at tiny scale:
+:182-214). This example wires the full recipe at tiny scale:
 
 1. warm-start the ControlNet from the base transformer (weight surgery),
 2. build glyph conditioning for synthetic text samples (the real data path:
@@ -24,11 +24,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from reptext_tpu.configs import ControlNetConfig, FluxConfig
-from reptext_tpu.models import FluxTransformer2D, RepTextControlNet
-from reptext_tpu.ops.latents import prepare_latent_image_ids
-from reptext_tpu.sampling.elastic import ElasticTrainer
-from reptext_tpu.sampling.train_controlnet import (
+from reptext.configs import ControlNetConfig, FluxConfig
+from reptext.models import FluxTransformer2D, RepTextControlNet
+from reptext.ops.latents import prepare_latent_image_ids
+from reptext.sampling.elastic import ElasticTrainer
+from reptext.sampling.train_controlnet import (
     bind_frozen_base,
     init_controlnet_training,
     make_controlnet_train_step,

@@ -76,7 +76,7 @@ EXPLICIT_CASES = [
 
 
 # directional marks/codes an LTR renderer must not draw (matches
-# reptext_tpu.conditioning.bidi._REMOVED)
+# reptext.conditioning.bidi._REMOVED)
 _MARKS = {0x200E, 0x200F, 0x061C, 0x202A, 0x202B, 0x202C, 0x202D, 0x202E,
           0x2066, 0x2067, 0x2068, 0x2069}
 
@@ -104,7 +104,7 @@ def log2vis(text: str, lib) -> str:
 
     btypes = (ctypes.c_uint32 * n)()
     lib.fribidi_get_bidi_types(str_in, n, btypes)
-    from reptext_tpu.conditioning.bidi import base_direction
+    from reptext.conditioning.bidi import base_direction
 
     ours_rtl = base_direction(text) == "rtl"
     if not any(ch in "⁦⁧⁨" for ch in text):
@@ -143,7 +143,7 @@ def main():
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from reptext_tpu.conditioning.bidi import reorder_visual
+    from reptext.conditioning.bidi import reorder_visual
 
     path = ctypes.util.find_library("fribidi") or "libfribidi.so.0"
     lib = ctypes.CDLL(path)

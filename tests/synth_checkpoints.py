@@ -4,7 +4,7 @@ Builds state dicts with EXACTLY the torch/diffusers/transformers key names
 the published checkpoints use (FLUX.1-dev transformer/VAE, Shakker-Labs
 RepText ControlNet, CLIP-L text encoder, T5 encoder — naming pinned by the
 torch-parity suites), and writes them as HF-layout snapshot directories
-(config.json + *.safetensors) so `reptext_tpu.io.convert_cli` can be tested
+(config.json + *.safetensors) so `reptext.io.convert_cli` can be tested
 end-to-end without network access or real weights.
 """
 
@@ -16,7 +16,7 @@ import os
 
 import numpy as np
 
-from reptext_tpu.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
+from reptext.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
 
 
 def _rng(seed=0):

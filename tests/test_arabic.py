@@ -1,6 +1,6 @@
 """Arabic shaping + bidi tests with hand-derived golden forms."""
 
-from reptext_tpu.conditioning import (
+from reptext.conditioning import (
     bidi_reorder,
     contains_arabic,
     prepare_display_text,

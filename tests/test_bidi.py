@@ -10,7 +10,7 @@ import os
 
 import pytest
 
-from reptext_tpu.conditioning.bidi import base_direction, reorder_visual
+from reptext.conditioning.bidi import base_direction, reorder_visual
 
 FIXTURE_PATH = os.path.join(os.path.dirname(__file__), "fixtures", "bidi_cases.json")
 
@@ -140,7 +140,7 @@ def test_marks_removed_from_visual():
 def test_en_vs_an_separation():
     # EN after Arabic letters becomes AN (W2) and orders with the RTL text;
     # EN after Latin stays EN. Both captured in fixtures; spot-check classes:
-    from reptext_tpu.conditioning.bidi import resolve_levels
+    from reptext.conditioning.bidi import resolve_levels
 
     levels, _ = resolve_levels("غرفة 101")
     # digits at level 2 (AN in RTL paragraph)

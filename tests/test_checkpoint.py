@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from reptext_tpu.io.checkpoint import load_pipeline_params, save_pipeline_params
+from reptext.io.checkpoint import load_pipeline_params, save_pipeline_params
 
 
 def test_roundtrip(tmp_path):
@@ -37,7 +37,7 @@ def test_load_missing_raises(tmp_path):
 def test_layout_version_written_and_checked(tmp_path):
     """Pre-RoPE-fold (v1) checkpoints must fail loudly, not load silently."""
     pytest.importorskip("orbax.checkpoint")
-    from reptext_tpu.io.checkpoint import (
+    from reptext.io.checkpoint import (
         LAYOUT_VERSION, checkpoint_layout_version)
 
     params = {"flux": {"params": {"w": jnp.ones((2, 2))}}}

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from reptext_tpu.cli import build_prompt, contains_cjk
-from reptext_tpu.utils.image import postprocess_images, preprocess_images
-from reptext_tpu.utils.profiling import StepTimer
+from reptext.cli import build_prompt, contains_cjk
+from reptext.utils.image import postprocess_images, preprocess_images
+from reptext.utils.profiling import StepTimer
 
 
 def test_contains_cjk():
@@ -42,6 +42,14 @@ def test_postprocess_clamps():
     assert out[0, 0, 0].tolist() == [255, 0, 128]
 
 
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_postprocess_refuses_non_finite(bad):
+    x = np.zeros((1, 2, 2, 3), np.float32)
+    x[0, 1, 1, 2] = bad
+    with pytest.raises(FloatingPointError, match="1 non-finite"):
+        postprocess_images(x)
+
+
 def test_step_timer():
     timer = StepTimer(warmup=1)
     for _ in range(4):
@@ -53,7 +61,7 @@ def test_step_timer():
 
 
 def test_cli_argument_validation():
-    from reptext_tpu.cli import main
+    from reptext.cli import main
     with pytest.raises(SystemExit):
         main(["--text", "a", "--position", "1", "2", "--position", "3", "4"])
     with pytest.raises(SystemExit):  # no weights source
@@ -74,7 +82,7 @@ def test_cli_sp_inpaint_generation(tmp_path):
     import numpy as np
     from PIL import Image
 
-    from reptext_tpu.cli import main
+    from reptext.cli import main
 
     img = tmp_path / "in.png"
     msk = tmp_path / "mask.png"
@@ -85,7 +93,7 @@ def test_cli_sp_inpaint_generation(tmp_path):
     m[16:48, 16:48] = 255
     Image.fromarray(m).save(msk)
     out = tmp_path / "out.png"
-    rc = main([
+    rc = main(["--compile-cache", "off",
         "--mode", "inpaint", "--tiny", "--random-weights",
         "--image", str(img), "--mask", str(msk),
         "--text", "Hi", "--position", "20", "24", "--steps", "2",
@@ -102,10 +110,10 @@ def test_cli_sharded_generation(tmp_path):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from reptext_tpu.cli import main
+    from reptext.cli import main
 
     out = tmp_path / "out.png"
-    rc = main([
+    rc = main(["--compile-cache", "off",
         "--text", "Hi", "--position", "8", "16", "--tiny", "--random-weights",
         "--size", "64", "--steps", "2", "--controlnet-step", "1",
         "--font-size", "24", "--shard", "2x4", "--output", str(out),
@@ -117,10 +125,10 @@ def test_cli_sharded_generation(tmp_path):
 def test_cli_num_images(tmp_path):
     """--num-images N: one batched sampler call, siblings saved with a
     _K suffix next to --output."""
-    from reptext_tpu.cli import main
+    from reptext.cli import main
 
     out = tmp_path / "multi.png"
-    rc = main([
+    rc = main(["--compile-cache", "off",
         "--text", "Hi", "--position", "8", "16", "--tiny", "--random-weights",
         "--size", "64", "--steps", "2", "--controlnet-step", "1",
         "--font-size", "24", "--num-images", "2", "--output", str(out),
@@ -131,27 +139,53 @@ def test_cli_num_images(tmp_path):
 
 
 def test_compile_cache_toggle(tmp_path, monkeypatch):
-    """utils/compile_cache: explicit dir enables the persistent cache;
-    'off' (and the test-env default) disables; env var is the fallback."""
+    """utils/compile_cache: off (``--compile-cache off``) leaves JAX's setting
+    alone; on turns the persistent cache on at the chosen directory."""
     import jax
 
-    from reptext_tpu.utils.compile_cache import enable_compile_cache
+    from reptext.utils import compile_cache
 
-    assert enable_compile_cache("off") is None
-    monkeypatch.setenv("REPTEXT_COMPILE_CACHE", "")
-    assert enable_compile_cache(None) is None
-
-    d = tmp_path / "xla_cache"
-    got = enable_compile_cache(str(d))
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "xla_cache"))
+    assert compile_cache.enable_compile_cache(False) is None
+    assert jax.config.jax_compilation_cache_dir == before
     try:
-        assert got == str(d) and d.is_dir()
-        assert jax.config.jax_compilation_cache_dir == str(d)
+        assert compile_cache.enable_compile_cache(True) == str(tmp_path / "xla_cache")
+        assert (tmp_path / "xla_cache").is_dir()
     finally:
-        jax.config.update("jax_compilation_cache_dir", None)
+        jax.config.update("jax_compilation_cache_dir", before)
 
-    monkeypatch.setenv("REPTEXT_COMPILE_CACHE", str(tmp_path / "env_cache"))
-    got = enable_compile_cache(None)
+
+@pytest.mark.parametrize("env", [False, True])
+def test_compile_cache_location(tmp_path, monkeypatch, env):
+    """utils/compile_cache: $JAX_COMPILATION_CACHE_DIR when set, else the
+    fixed <checkout>/.cache/xla."""
+    import os
+
+    import jax
+
+    from reptext.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+        want = str(tmp_path / "env")
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setattr(compile_cache, "DEFAULT_DIR", str(tmp_path / "repo" / ".cache" / "xla"))
+        want = compile_cache.DEFAULT_DIR
     try:
-        assert got == str(tmp_path / "env_cache")
+        assert compile_cache.enable_compile_cache() == want
+        assert os.path.isdir(want)
+        assert jax.config.jax_compilation_cache_dir == want
     finally:
-        jax.config.update("jax_compilation_cache_dir", None)
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_default_compile_cache_is_inside_the_checkout():
+    import os
+
+    from reptext.utils import compile_cache
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert compile_cache.DEFAULT_DIR == os.path.join(root, ".cache", "xla")

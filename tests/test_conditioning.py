@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from reptext_tpu.conditioning import (
+from reptext.conditioning import (
     TextLine,
     build_conditions,
     canny_edges,

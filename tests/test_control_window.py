@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from reptext_tpu.configs import PipelineConfig
-from reptext_tpu.sampling import build_schedule
-from reptext_tpu.sampling.sampler import _cn_active_mask, make_txt2img_sampler
+from reptext.configs import PipelineConfig
+from reptext.sampling import build_schedule
+from reptext.sampling.sampler import _cn_active_mask, make_txt2img_sampler
 
 B, S, C, S_TXT, INNER = 1, 16, 8, 4, 8
 L_CN, LS_CN = 2, 3

@@ -14,19 +14,19 @@ import pytest
 # heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
-from reptext_tpu.io.convert import (
+from reptext.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
+from reptext.io.convert import (
     convert_clip,
     convert_controlnet,
     convert_flux_transformer,
     convert_t5,
     convert_vae,
 )
-from reptext_tpu.models import FluxTransformer2D, RepTextControlNet
-from reptext_tpu.nn.clip import CLIPTextEncoder
-from reptext_tpu.nn.t5 import T5Encoder
-from reptext_tpu.nn.vae import AutoencoderKL
-from reptext_tpu.ops.latents import prepare_latent_image_ids
+from reptext.models import FluxTransformer2D, RepTextControlNet
+from reptext.nn.clip import CLIPTextEncoder
+from reptext.nn.t5 import T5Encoder
+from reptext.nn.vae import AutoencoderKL
+from reptext.ops.latents import prepare_latent_image_ids
 
 
 def tree_paths_and_shapes(tree):

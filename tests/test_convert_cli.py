@@ -2,7 +2,7 @@
 
 The reference's loading story is diffusers ``from_pretrained`` over an HF
 snapshot (RepText/infer.py:30-33); ours is a one-time offline conversion via
-``python -m reptext_tpu.io.convert_cli``. These tests build synthetic
+``python -m reptext.io.convert_cli``. These tests build synthetic
 HF-layout snapshots (exact diffusers/transformers key names + config.json,
 see tests/synth_checkpoints.py), run the real CLI main(), and assert that
 
@@ -21,9 +21,9 @@ import os
 import numpy as np
 import pytest
 
-from reptext_tpu.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
-from reptext_tpu.io import convert_cli
-from reptext_tpu.io.checkpoint import (
+from reptext.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
+from reptext.io import convert_cli
+from reptext.io.checkpoint import (
     LAYOUT_VERSION,
     checkpoint_layout_version,
     load_pipeline_params,
@@ -98,7 +98,7 @@ def test_components_restore_bitexact(converted):
     """Orbax round-trip equals a direct in-process conversion."""
     import jax
 
-    from reptext_tpu.io import convert as C
+    from reptext.io import convert as C
 
     flux, cn, *_ = converted["cfgs"]
     params = load_pipeline_params(converted["out"])
@@ -166,7 +166,7 @@ def test_configs_json_is_complete_dataclass_dump(converted):
 
 
 def test_cli_lora_requires_checkpoint():
-    from reptext_tpu.cli import main
+    from reptext.cli import main
 
     with pytest.raises(SystemExit):
         main(["--text", "a", "--position", "1", "2", "--random-weights",
@@ -179,7 +179,7 @@ def test_cli_generation_from_converted_checkpoint_with_lora(converted, tmp_path,
     --tiny NOT passed) + LoRA weight surgery + txt2img to a PNG."""
     from safetensors.numpy import save_file
 
-    from reptext_tpu.cli import main
+    from reptext.cli import main
 
     flux = converted["cfgs"][0]
     r = np.random.default_rng(7)
@@ -205,7 +205,7 @@ def test_cli_generation_from_converted_checkpoint_with_lora(converted, tmp_path,
     shutil.copytree(converted["out"], ckpt,
                     ignore=shutil.ignore_patterns("tokenizer*"))
     out = tmp_path / "out.png"
-    rc = main([
+    rc = main(["--compile-cache", "off",
         "--text", "Hi", "--position", "8", "16",
         "--checkpoint-dir", ckpt,
         "--lora", lora_path, "--lora-scale", "0.5",
@@ -223,7 +223,7 @@ def test_cli_inpaint_from_converted_checkpoint(converted, tmp_path):
     inpaint_controlnet geometry must come from configs.json."""
     from PIL import Image
 
-    from reptext_tpu.cli import main
+    from reptext.cli import main
 
     import shutil
 
@@ -237,7 +237,7 @@ def test_cli_inpaint_from_converted_checkpoint(converted, tmp_path):
     m[16:48, 8:56] = 255
     Image.fromarray(m).save(mask_p)
     out = tmp_path / "out.png"
-    rc = main([
+    rc = main(["--compile-cache", "off",
         "--mode", "inpaint", "--image", img_p, "--mask", mask_p,
         "--text", "Hi", "--position", "8", "16",
         "--checkpoint-dir", ckpt, "--controlnet-mode", "3",
@@ -253,11 +253,11 @@ def test_ip_adapter_convert_and_attach(converted, tmp_path):
     the blocks component used to be ignored -> random/zero adapter)."""
     from safetensors.numpy import save_file
 
-    from reptext_tpu.configs import (
+    from reptext.configs import (
         CLIPConfig, CLIPVisionConfig, ControlNetConfig, FluxConfig,
         IPAdapterConfig, PipelineConfig, T5Config, VAEConfig,
     )
-    from reptext_tpu.pipelines import FluxRepTextPipeline
+    from reptext.pipelines import FluxRepTextPipeline
 
     flux = converted["cfgs"][0]
     d, cd, ed, nt = flux.inner_dim, flux.joint_attention_dim, 32, 2
@@ -348,8 +348,8 @@ def test_fp8_storage_matches_load_time_quantization(converted, tmp_path):
     bitwise."""
     import ml_dtypes
 
-    from reptext_tpu.io.convert_cli import _cast_tree
-    from reptext_tpu.io.quantize import QUANT_KEY, SCALE_KEY, is_quantized, quantize_params
+    from reptext.io.convert_cli import _cast_tree
+    from reptext.io.quantize import QUANT_KEY, SCALE_KEY, is_quantized, quantize_params
 
     out = str(tmp_path / "fp8")
     rc = convert_cli.main([
@@ -384,7 +384,7 @@ def test_cli_generation_from_fp8_checkpoint_autodetect(converted, tmp_path):
     quantized storage and switches the models to weight_quant."""
     import shutil
 
-    from reptext_tpu.cli import main
+    from reptext.cli import main
 
     out = str(tmp_path / "fp8full")
     rc = convert_cli.main([
@@ -396,7 +396,7 @@ def test_cli_generation_from_fp8_checkpoint_autodetect(converted, tmp_path):
     ckpt = str(tmp_path / "ckpt")
     shutil.copytree(out, ckpt, ignore=shutil.ignore_patterns("tokenizer*"))
     png = tmp_path / "out.png"
-    rc = main([
+    rc = main(["--compile-cache", "off",
         "--text", "Hi", "--position", "8", "16",
         "--checkpoint-dir", ckpt, "--controlnet-mode", "3",
         "--size", "64", "--steps", "2", "--controlnet-step", "1",

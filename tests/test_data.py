@@ -7,11 +7,11 @@ import pytest
 # e2e sampling / heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import (
+from reptext.configs import (
     CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
 )
-from reptext_tpu.data import GlyphTextDataset
-from reptext_tpu.pipelines import FluxRepTextPipeline
+from reptext.data import GlyphTextDataset
+from reptext.pipelines import FluxRepTextPipeline
 
 H = W = 64
 
@@ -44,7 +44,7 @@ def test_batch_shapes(dataset):
     m = np.asarray(b["token_mask"])
     assert 0 < m.sum() < m.size
     # OCR perceptual-term fields (sampling/ocr_loss.py)
-    from reptext_tpu.eval.ocr import MAX_LABEL
+    from reptext.eval.ocr import MAX_LABEL
 
     assert b["ocr_boxes"].shape == (2, 4)
     boxes = np.asarray(b["ocr_boxes"])
@@ -65,7 +65,7 @@ def test_step_indexed_determinism(dataset):
 
 
 def test_prefetch_loader_sequential_and_rollback():
-    from reptext_tpu.data import PrefetchLoader
+    from reptext.data import PrefetchLoader
 
     calls = []
 
@@ -86,7 +86,7 @@ def test_prefetch_loader_sequential_and_rollback():
 
 
 def test_prefetch_loader_propagates_errors():
-    from reptext_tpu.data import PrefetchLoader
+    from reptext.data import PrefetchLoader
 
     def batch_fn(step):
         if step == 1:
@@ -107,7 +107,7 @@ def test_prefetch_loader_propagates_errors():
 def test_trainable_with_controlnet_step(dataset):
     import optax
 
-    from reptext_tpu.sampling.train_controlnet import (
+    from reptext.sampling.train_controlnet import (
         make_controlnet_train_step,
     )
 
@@ -164,7 +164,7 @@ def _write_corpus(root, n=5):
 
 
 def test_disk_dataset_batch_contract(dataset, tmp_path):
-    from reptext_tpu.data_disk import DiskImageTextDataset
+    from reptext.data_disk import DiskImageTextDataset
 
     corpus = _write_corpus(str(tmp_path))
     ds = DiskImageTextDataset(dataset.pipe, corpus, batch_size=2, seed=5)
@@ -180,7 +180,7 @@ def test_disk_dataset_batch_contract(dataset, tmp_path):
 
 
 def test_disk_dataset_deterministic_and_epoch_coverage(dataset, tmp_path):
-    from reptext_tpu.data_disk import DiskImageTextDataset
+    from reptext.data_disk import DiskImageTextDataset
 
     corpus = _write_corpus(str(tmp_path), n=4)
     ds = DiskImageTextDataset(dataset.pipe, corpus, batch_size=2, seed=5)
@@ -193,7 +193,7 @@ def test_disk_dataset_deterministic_and_epoch_coverage(dataset, tmp_path):
 
 
 def test_disk_dataset_sharding_disjoint(dataset, tmp_path):
-    from reptext_tpu.data_disk import DiskImageTextDataset
+    from reptext.data_disk import DiskImageTextDataset
 
     corpus = _write_corpus(str(tmp_path), n=6)
     a = DiskImageTextDataset(dataset.pipe, corpus, batch_size=1, shard=(0, 2))
@@ -206,7 +206,7 @@ def test_disk_dataset_sharding_disjoint(dataset, tmp_path):
 def test_disk_dataset_validation(tmp_path):
     import json
 
-    from reptext_tpu.data_disk import load_annotations
+    from reptext.data_disk import load_annotations
 
     with open(tmp_path / "annotations.jsonl", "w") as f:
         f.write(json.dumps({"image": "x.png", "lines": []}) + "\n")
@@ -217,7 +217,7 @@ def test_disk_dataset_validation(tmp_path):
 def test_disk_dataset_rescales_annotations(dataset, tmp_path):
     """Annotation coords are original-image pixels; specs must rescale to
     the training resolution (here 64x64 from 96h x 80w photos)."""
-    from reptext_tpu.data_disk import DiskImageTextDataset
+    from reptext.data_disk import DiskImageTextDataset
 
     corpus = _write_corpus(str(tmp_path), n=2)
     ds = DiskImageTextDataset(dataset.pipe, corpus, batch_size=1, seed=0)

@@ -10,7 +10,7 @@ import pytest
 # e2e sampling / heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.sampling.elastic import ElasticTrainer
+from reptext.sampling.elastic import ElasticTrainer
 
 
 def quad_step(params, opt_state, batch, rng):

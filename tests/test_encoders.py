@@ -8,10 +8,10 @@ import pytest
 # e2e sampling / heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import CLIPConfig, T5Config, VAEConfig
-from reptext_tpu.nn.clip import CLIPTextEncoder
-from reptext_tpu.nn.t5 import T5Encoder, relative_position_bucket
-from reptext_tpu.nn.vae import AutoencoderKL
+from reptext.configs import CLIPConfig, T5Config, VAEConfig
+from reptext.nn.clip import CLIPTextEncoder
+from reptext.nn.t5 import T5Encoder, relative_position_bucket
+from reptext.nn.vae import AutoencoderKL
 
 VAE_CFG = VAEConfig().tiny()
 

@@ -10,7 +10,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from reptext_tpu.sampling import FlowMatchSchedule, build_schedule, calculate_shift
+from reptext.sampling import FlowMatchSchedule, build_schedule, calculate_shift
 
 
 def test_calculate_shift_golden():

@@ -7,11 +7,11 @@ import pytest
 # e2e sampling / heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import (
+from reptext.configs import (
     CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
 )
-from reptext_tpu.conditioning import TextLine, build_conditions
-from reptext_tpu.pipelines import FluxRepTextPipeline
+from reptext.conditioning import TextLine, build_conditions
+from reptext.pipelines import FluxRepTextPipeline
 
 H = W = 64
 

@@ -9,7 +9,7 @@ import pytest
 # e2e sampling / heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import (
+from reptext.configs import (
     CLIPConfig,
     ControlNetConfig,
     FluxConfig,
@@ -17,8 +17,8 @@ from reptext_tpu.configs import (
     T5Config,
     VAEConfig,
 )
-from reptext_tpu.conditioning import TextLine, build_conditions
-from reptext_tpu.pipelines import FluxRepTextInpaintPipeline
+from reptext.conditioning import TextLine, build_conditions
+from reptext.pipelines import FluxRepTextInpaintPipeline
 
 H = W = 64
 
@@ -154,7 +154,7 @@ def test_inpaint_velocity_cache(pipeline):
     # adaptive mode: threshold=0 always computes -> same trajectory as
     # uncached. Tolerance 1: the lax.cond wrapper shifts XLA fusion
     # boundaries, and a handful of pixels land on the other side of the
-    # uint8 rounding boundary (measured: 4/12288 off by exactly 1 on TPU).
+    # uint8 rounding boundary (measured: 4/12288 off by exactly 1).
     always = build(4, 1, velocity_cache_mode="adaptive",
                    velocity_cache_threshold=0.0)(kw["conds"], **rest)
     d1 = np.abs(base.astype(np.int32) - always.astype(np.int32))

@@ -2,7 +2,7 @@
 
 The reference README advertises compatibility with the published FLUX
 IP-Adapter (RepText/README.md:183) via diffusers; the adapter itself lives
-in diffusers, not the reference repo. The TPU build implements it natively
+in diffusers, not the reference repo. This build implements it natively
 (nn/clip_vision.py, models/ip_adapter.py, nn/blocks.py ip_adapter path) and
 these tests pin:
 
@@ -22,20 +22,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from reptext_tpu.configs import (
+from reptext.configs import (
     CLIPConfig, CLIPVisionConfig, ControlNetConfig, FluxConfig,
     IPAdapterConfig, PipelineConfig, T5Config, VAEConfig,
 )
-from reptext_tpu.io.convert import (
+from reptext.io.convert import (
     _double_block, _lin, _lin_rope, convert_clip_vision,
     convert_flux_transformer, convert_ip_adapter, merge_ip_adapter_into_flux,
 )
-from reptext_tpu.models import FluxTransformer2D
-from reptext_tpu.models.ip_adapter import ImageProjection
-from reptext_tpu.nn.blocks import JointTransformerBlock
-from reptext_tpu.nn.clip_vision import CLIPVisionEncoder
-from reptext_tpu.ops.latents import prepare_latent_image_ids
-from reptext_tpu.ops.rope import rope_cos_sin, rope_cos_sin_half
+from reptext.models import FluxTransformer2D
+from reptext.models.ip_adapter import ImageProjection
+from reptext.nn.blocks import JointTransformerBlock
+from reptext.nn.clip_vision import CLIPVisionEncoder
+from reptext.ops.latents import prepare_latent_image_ids
+from reptext.ops.rope import rope_cos_sin, rope_cos_sin_half
 
 torch = pytest.importorskip("torch")
 tnn = torch.nn
@@ -332,8 +332,8 @@ def test_convert_and_merge_roundtrip():
 
 @pytest.mark.slow
 def test_pipeline_ip_adapter_smoke():
-    from reptext_tpu.conditioning import TextLine, build_conditions
-    from reptext_tpu.pipelines import FluxRepTextPipeline
+    from reptext.conditioning import TextLine, build_conditions
+    from reptext.pipelines import FluxRepTextPipeline
 
     size, steps = 64, 2
     pipe_cfg = PipelineConfig(height=size, width=size,
@@ -351,7 +351,7 @@ def test_pipeline_ip_adapter_smoke():
             cross_attention_dim=pipe.flux.config.joint_attention_dim),
     )
     conds = build_conditions([TextLine("Hi", (8, 20), font_size=20)], size, size)
-    from reptext_tpu.cli import _tokenize
+    from reptext.cli import _tokenize
 
     clip_ids, t5_ids = _tokenize("a sign", pipe.clip.config, pipe.t5.config, None)
     style = np.random.default_rng(0).integers(

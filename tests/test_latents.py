@@ -8,13 +8,13 @@ explicit loops.
 import jax.numpy as jnp
 import numpy as np
 
-from reptext_tpu.ops import (
+from reptext.ops import (
     pack_latents,
     unpack_latents,
     prepare_latent_image_ids,
     downsample_region_mask,
 )
-from reptext_tpu.ops.latents import glyph_latent_blend, binarize_glyph_mask_to_latent
+from reptext.ops.latents import glyph_latent_blend, binarize_glyph_mask_to_latent
 
 
 def reference_pack(x: np.ndarray) -> np.ndarray:

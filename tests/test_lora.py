@@ -8,10 +8,10 @@ import pytest
 # heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import FluxConfig
-from reptext_tpu.io.lora import apply_lora, parse_lora_state
-from reptext_tpu.models import FluxTransformer2D
-from reptext_tpu.ops.latents import prepare_latent_image_ids
+from reptext.configs import FluxConfig
+from reptext.io.lora import apply_lora, parse_lora_state
+from reptext.models import FluxTransformer2D
+from reptext.ops.latents import prepare_latent_image_ids
 
 CFG = FluxConfig().tiny()
 D = CFG.inner_dim

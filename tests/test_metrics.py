@@ -5,7 +5,7 @@ import time
 import jax
 import pytest
 
-from reptext_tpu.utils.metrics import Metrics
+from reptext.utils.metrics import Metrics
 
 
 def test_counters_and_gauges():
@@ -44,12 +44,12 @@ def test_sharded_pipeline_generation():
     import jax.numpy as jnp
     import numpy as np
 
-    from reptext_tpu.configs import (
+    from reptext.configs import (
         CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
     )
-    from reptext_tpu.conditioning import TextLine, build_conditions
-    from reptext_tpu.parallel import make_mesh
-    from reptext_tpu.pipelines import FluxRepTextPipeline
+    from reptext.conditioning import TextLine, build_conditions
+    from reptext.parallel import make_mesh
+    from reptext.pipelines import FluxRepTextPipeline
 
     pipe = FluxRepTextPipeline.create(
         flux_cfg=FluxConfig().tiny(), cn_cfg=ControlNetConfig().tiny(),

@@ -1,14 +1,16 @@
 """Tiny-config model tests: shapes, determinism, zero-init ControlNet no-op,
 residual injection plumbing."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from reptext_tpu.configs import ControlNetConfig, FluxConfig
-from reptext_tpu.models import FluxTransformer2D, RepTextControlNet
-from reptext_tpu.ops.latents import prepare_latent_image_ids
+from reptext.configs import ControlNetConfig, FluxConfig
+from reptext.models import FluxTransformer2D, RepTextControlNet
+from reptext.ops.latents import prepare_latent_image_ids
 
 B, S_TXT, S_IMG = 2, 6, 16  # 8x8 latent -> 4x4 tokens
 FLUX_CFG = FluxConfig().tiny()
@@ -120,7 +122,7 @@ def test_flux_residual_injection_changes_output(flux_and_params):
 
 
 def test_residual_interval_spreading():
-    from reptext_tpu.models.flux import _spread_residuals
+    from reptext.models.flux import _spread_residuals
     samples = jnp.arange(4.0).reshape(4, 1, 1, 1)
     out = np.asarray(_spread_residuals(samples, 8)).ravel()
     # ceil(8/4)=2 -> [0,0,1,1,2,2,3,3]
@@ -164,3 +166,24 @@ def test_flux_schnell_no_guidance_embeds():
         i2 = _flux_inputs()
         i2["guidance"] = None
         m2.init(jax.random.PRNGKey(4), **i2)
+
+
+@pytest.mark.parametrize("depth", [(1, 2), (2, 4)])   # a slice, and the whole base
+def test_weight_surgery_gives_the_controlnet_buffers_of_its_own(flux_and_params, depth):
+    from reptext.models.controlnet import params_from_transformer
+
+    cfg = dataclasses.replace(CN_CFG, num_layers=depth[0], num_single_layers=depth[1])
+    inputs = _flux_inputs()
+    inputs["controlnet_cond"] = jnp.ones(
+        (B, S_IMG, cfg.in_channels + cfg.extra_condition_channels), jnp.float32)
+    template = RepTextControlNet(cfg).init(jax.random.PRNGKey(1), **inputs)
+    model, flux_params = flux_and_params
+    cn = params_from_transformer(flux_params, template, *depth)
+
+    def buffers(tree):
+        return {x.unsafe_buffer_pointer() for x in jax.tree_util.tree_leaves(tree)}
+
+    assert not buffers(cn) & buffers((flux_params, template))
+    # training donates the ControlNet's params; the base stays usable
+    jax.jit(lambda p: jax.tree_util.tree_map(lambda x: x + 1, p), donate_argnums=0)(cn)
+    assert jnp.isfinite(model.apply(flux_params, **_flux_inputs())).all()

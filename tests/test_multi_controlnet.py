@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from reptext_tpu.configs import ControlNetConfig, FluxConfig
-from reptext_tpu.models import ControlNetEntry, MultiControlNet, RepTextControlNet
-from reptext_tpu.ops.latents import prepare_latent_image_ids
+from reptext.configs import ControlNetConfig, FluxConfig
+from reptext.models import ControlNetEntry, MultiControlNet, RepTextControlNet
+from reptext.ops.latents import prepare_latent_image_ids
 
 FLUX_CFG = FluxConfig().tiny()
 CN_CFG = ControlNetConfig().tiny()
@@ -68,7 +68,7 @@ def test_two_nets_sum():
     assert single.shape[0] == FLUX_CFG.num_single_layers
 
     # sum equals the two individually-spread contributions
-    from reptext_tpu.models.flux import _spread_residuals
+    from reptext.models.flux import _spread_residuals
     b1, s1 = m1.apply(p1, inp["hidden_states"], c1, inp["encoder_hidden_states"],
                       inp["pooled_projections"], inp["timestep"], inp["img_ids"],
                       inp["txt_ids"], inp["guidance"], conditioning_scale=1.0)

@@ -5,8 +5,8 @@ import time
 import numpy as np
 import pytest
 
-from reptext_tpu.conditioning.canny import canny_edges
-from reptext_tpu.native import native_available
+from reptext.conditioning.canny import canny_edges
+from reptext.native import native_available
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="no C++ toolchain / native build failed"
@@ -14,7 +14,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def _glyph_image(h=256, w=256, seed=0):
-    from reptext_tpu.conditioning import TextLine, build_conditions
+    from reptext.conditioning import TextLine, build_conditions
 
     conds = build_conditions(
         [TextLine("مرحبا Test", (20, h // 2 - 20), font_size=40)], w, h

@@ -1,4 +1,4 @@
-"""OCR glyph-accuracy judge (reptext_tpu/eval/ocr.py).
+"""OCR glyph-accuracy judge (reptext/eval/ocr.py).
 
 Fast tier: decode/edit-distance unit tests + frozen-weight separation checks
 (the committed benchmarks/ocr_judge.npz must score ~1 on clean renders and
@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from reptext_tpu.eval import ocr
+from reptext.eval import ocr
 
 WEIGHTS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -42,7 +42,7 @@ def test_edit_distance():
 
 def test_charset_covers_data_pools():
     """Every character the training data pools render must be labelable."""
-    from reptext_tpu.data import DEFAULT_WORDS
+    from reptext.data import DEFAULT_WORDS
 
     for word in DEFAULT_WORDS:
         for ch in word:
@@ -69,7 +69,7 @@ def test_render_word_shapes_arabic():
 @pytest.mark.skipif(not os.path.isfile(WEIGHTS), reason="no frozen judge")
 def test_frozen_judge_separates():
     """The committed weights give char accuracy ~1 on clean renders and ~0 on
-    noise — the separation evidence BASELINE.json's north star requires."""
+    noise — the separation evidence the north star requires."""
     params = ocr.load_judge(WEIGHTS)
     rng = np.random.default_rng(5)
     words = [ocr.random_word(rng) for _ in range(16)]

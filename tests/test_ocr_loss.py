@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from reptext_tpu.ops.crop import crop_and_resize
-from reptext_tpu.sampling.ocr_loss import (
+from reptext.ops.crop import crop_and_resize
+from reptext.sampling.ocr_loss import (
     aspect_box,
     glyph_ink_bbox,
     ocr_ctc_loss,
@@ -71,7 +71,7 @@ def test_crop_gradients_flow():
 def _scene_with_word(text="CAFE", font_size=40):
     """Render ``text`` into a larger grayscale scene; returns (scene_rgb
     [H,W,3] float in [-1,1], normalized judge box)."""
-    from reptext_tpu.eval.ocr import render_word
+    from reptext.eval.ocr import render_word
 
     word = render_word(text, font_size=font_size)          # [h, w] in [0,1]
     H, W = 128, 256
@@ -89,7 +89,7 @@ def _scene_with_word(text="CAFE", font_size=40):
 def test_ingraph_preprocess_decodes_like_eval():
     """The jittable crop->standardize path feeds the judge well enough to
     decode the same string as the host-side prepare_crop path."""
-    from reptext_tpu.eval.ocr import OCRJudge, decode_logits, load_judge, prepare_crop
+    from reptext.eval.ocr import OCRJudge, decode_logits, load_judge, prepare_crop
 
     try:
         params = load_judge()
@@ -110,7 +110,7 @@ def test_ingraph_preprocess_decodes_like_eval():
 
 
 def test_ctc_loss_discriminates_text_from_noise():
-    from reptext_tpu.eval.ocr import CHAR_TO_ID, MAX_LABEL, load_judge
+    from reptext.eval.ocr import CHAR_TO_ID, MAX_LABEL, load_judge
 
     try:
         params = load_judge()
@@ -138,7 +138,7 @@ def test_ctc_loss_discriminates_text_from_noise():
 
 
 def test_ctc_loss_sample_weights_zero_out():
-    from reptext_tpu.eval.ocr import CHAR_TO_ID, MAX_LABEL, load_judge
+    from reptext.eval.ocr import CHAR_TO_ID, MAX_LABEL, load_judge
 
     try:
         params = load_judge()
@@ -164,7 +164,7 @@ def test_ctc_loss_sample_weights_zero_out():
 
 
 def test_aspect_box_is_judge_aspect():
-    from reptext_tpu.eval.ocr import IMG_H, IMG_W
+    from reptext.eval.ocr import IMG_H, IMG_W
 
     box = aspect_box((10, 20, 30, 100), 128, 256)
     y0, x0, y1, x1 = box
@@ -198,11 +198,11 @@ def test_train_step_with_perceptual_term():
     through decode -> crop -> judge -> CTC and the loss includes the term."""
     import optax
 
-    from reptext_tpu.configs import ControlNetConfig, FluxConfig
-    from reptext_tpu.eval.ocr import CHAR_TO_ID, MAX_LABEL, OCRJudge, load_judge
-    from reptext_tpu.models import FluxTransformer2D, RepTextControlNet
-    from reptext_tpu.ops.latents import prepare_latent_image_ids, unpack_latents
-    from reptext_tpu.sampling.train_controlnet import (
+    from reptext.configs import ControlNetConfig, FluxConfig
+    from reptext.eval.ocr import CHAR_TO_ID, MAX_LABEL, OCRJudge, load_judge
+    from reptext.models import FluxTransformer2D, RepTextControlNet
+    from reptext.ops.latents import prepare_latent_image_ids, unpack_latents
+    from reptext.sampling.train_controlnet import (
         bind_frozen_base, controlnet_flow_match_loss, make_controlnet_train_step,
     )
 

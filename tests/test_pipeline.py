@@ -8,7 +8,7 @@ import pytest
 # e2e sampling / heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import (
+from reptext.configs import (
     CLIPConfig,
     ControlNetConfig,
     FluxConfig,
@@ -16,8 +16,8 @@ from reptext_tpu.configs import (
     T5Config,
     VAEConfig,
 )
-from reptext_tpu.conditioning import TextLine, build_conditions
-from reptext_tpu.pipelines import FluxRepTextPipeline
+from reptext.conditioning import TextLine, build_conditions
+from reptext.pipelines import FluxRepTextPipeline
 
 H = W = 64  # latent 8x8 -> 16 tokens
 
@@ -211,7 +211,7 @@ def test_pil_output_and_return_dict(pipeline, conditions):
     (FluxPipelineOutput with PIL images, pipeline_flux_controlnet.py:1132-1148)."""
     from PIL import Image
 
-    from reptext_tpu.pipelines import FluxPipelineOutput
+    from reptext.pipelines import FluxPipelineOutput
 
     clip_ids = jnp.asarray([[3, 7, 255, 0, 0, 0, 0, 0]], jnp.int32)
     t5_ids = jnp.asarray([[5, 9, 1, 0, 0, 0]], jnp.int32)

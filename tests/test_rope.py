@@ -7,7 +7,7 @@ use_real_unbind_dim=-1) against an explicit complex-rotation reference.
 import jax.numpy as jnp
 import numpy as np
 
-from reptext_tpu.ops import rope_cos_sin, apply_rope
+from reptext.ops import rope_cos_sin, apply_rope
 
 
 def reference_rope(ids, axes_dim, theta, x):
@@ -62,7 +62,7 @@ def test_rope_preserves_norm():
 def test_half_layout_equivalence():
     """Half-split rotation == interleaved rotation under the deinterleave
     channel permutation (the identity io/convert.py::_lin_rope relies on)."""
-    from reptext_tpu.ops.rope import (
+    from reptext.ops.rope import (
         apply_rope_half,
         deinterleave_perm,
         rope_cos_sin_half,
@@ -87,7 +87,7 @@ def test_half_layout_equivalence():
 def test_half_inverse_rotation():
     """apply_rope_half(., cos, -sin) inverts apply_rope_half(., cos, sin)
     (the adjoint identity the fused-kernel backward uses)."""
-    from reptext_tpu.ops.rope import apply_rope_half, rope_cos_sin_half
+    from reptext.ops.rope import apply_rope_half, rope_cos_sin_half
 
     r = np.random.default_rng(1)
     ids = np.asarray(r.integers(0, 7, (6, 3)), np.float32)

@@ -10,11 +10,11 @@ import pytest
 # e2e sampling / heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import (
+from reptext.configs import (
     CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
 )
-from reptext_tpu.pipelines import FluxRepTextPipeline
-from reptext_tpu.serving import GenerationServer
+from reptext.pipelines import FluxRepTextPipeline
+from reptext.serving import GenerationServer
 
 H = W = 64
 
@@ -82,8 +82,8 @@ def test_metrics_endpoint(server):
 
 def test_worker_coalesces_same_signature_batch(server):
     """Two queued same-signature requests are served by ONE batched call."""
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
-    from reptext_tpu.utils.metrics import Metrics
+    from reptext.serving import GenerationRequest, GenerationWorker
+    from reptext.utils.metrics import Metrics
 
     m = Metrics()
     worker = GenerationWorker(server.worker.pipeline, max_batch=4, metrics=m)
@@ -106,8 +106,8 @@ def test_worker_coalesces_same_signature_batch(server):
 
 def test_worker_splits_mismatched_signatures(server):
     """Different (steps, guidance, n_lines) must NOT coalesce."""
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
-    from reptext_tpu.utils.metrics import Metrics
+    from reptext.serving import GenerationRequest, GenerationWorker
+    from reptext.utils.metrics import Metrics
 
     worker = GenerationWorker(server.worker.pipeline, max_batch=4,
                               metrics=Metrics())
@@ -137,8 +137,8 @@ def test_inpaint_request_roundtrip(server):
     import numpy as np
     from PIL import Image
 
-    from reptext_tpu.pipelines import FluxRepTextInpaintPipeline
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
+    from reptext.pipelines import FluxRepTextInpaintPipeline
+    from reptext.serving import GenerationRequest, GenerationWorker
 
     inpaint_pipe = FluxRepTextInpaintPipeline.create_inpaint(
         inpaint_cn_cfg=dataclasses.replace(
@@ -196,8 +196,8 @@ def test_resolution_must_be_multiple_of_16(server):
 def test_oom_batch_splits_and_requests_survive(server):
     """A RESOURCE_EXHAUSTED batch shrinks the coalescing cap and the same
     requests complete under the smaller cap — no request fails."""
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
-    from reptext_tpu.utils.metrics import Metrics
+    from reptext.serving import GenerationRequest, GenerationWorker
+    from reptext.utils.metrics import Metrics
 
     real = server.worker.pipeline
 
@@ -234,7 +234,7 @@ def test_oom_batch_splits_and_requests_survive(server):
 def test_oom_cap_is_per_resolution_and_restores(server):
     """The OOM shrink only caps the failing resolution bucket, and a cooldown
     of successful rounds doubles the cap back up to the configured max."""
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
+    from reptext.serving import GenerationRequest, GenerationWorker
 
     worker = GenerationWorker(server.worker.pipeline, max_batch=4)
     worker.oom_restore_after = 2
@@ -259,8 +259,8 @@ def test_oom_cap_is_per_resolution_and_restores(server):
 
 
 def test_oom_single_request_fails_cleanly(server):
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
-    from reptext_tpu.utils.metrics import Metrics
+    from reptext.serving import GenerationRequest, GenerationWorker
+    from reptext.utils.metrics import Metrics
 
     real = server.worker.pipeline
 
@@ -282,7 +282,7 @@ def test_oom_single_request_fails_cleanly(server):
 
 
 def test_inpaint_without_pipeline_errors(server):
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
+    from reptext.serving import GenerationRequest, GenerationWorker
 
     worker = GenerationWorker(server.worker.pipeline)  # no inpaint pipeline
     req = GenerationRequest(prompt="a", lines=[], mode="inpaint",
@@ -302,9 +302,9 @@ def test_ip_adapter_batch_coalesces_with_plain(server):
     import numpy as np
     from PIL import Image
 
-    from reptext_tpu.configs import CLIPVisionConfig, IPAdapterConfig
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
-    from reptext_tpu.utils.metrics import Metrics
+    from reptext.configs import CLIPVisionConfig, IPAdapterConfig
+    from reptext.serving import GenerationRequest, GenerationWorker
+    from reptext.utils.metrics import Metrics
 
     # baseline: plain pipeline, no adapter
     base_worker = GenerationWorker(server.worker.pipeline, max_batch=4,
@@ -359,9 +359,9 @@ def test_worker_coalesces_inpaint_batch(server):
     import numpy as np
     from PIL import Image
 
-    from reptext_tpu.pipelines import FluxRepTextInpaintPipeline
-    from reptext_tpu.serving import GenerationRequest, GenerationWorker
-    from reptext_tpu.utils.metrics import Metrics
+    from reptext.pipelines import FluxRepTextInpaintPipeline
+    from reptext.serving import GenerationRequest, GenerationWorker
+    from reptext.utils.metrics import Metrics
 
     inpaint_pipe = FluxRepTextInpaintPipeline.create_inpaint(
         inpaint_cn_cfg=dataclasses.replace(

@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from reptext_tpu.configs import FluxConfig
-from reptext_tpu.io.convert import convert_flux_transformer
-from reptext_tpu.io.single_file import (
+from reptext.configs import FluxConfig
+from reptext.io.convert import convert_flux_transformer
+from reptext.io.single_file import (
     bfl_flux_to_diffusers,
     is_bfl_flux,
     load_flux_single_file,
@@ -131,8 +131,8 @@ def test_convert_cli_single_file(tmp_path):
     import json
 
     safetensors = pytest.importorskip("safetensors.numpy")
-    from reptext_tpu.io import convert_cli
-    from reptext_tpu.io.checkpoint import load_pipeline_params, load_saved_configs
+    from reptext.io import convert_cli
+    from reptext.io.checkpoint import load_pipeline_params, load_saved_configs
 
     cfg = dataclasses.replace(
         FluxConfig(), num_layers=1, num_single_layers=2,

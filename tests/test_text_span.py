@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from reptext_tpu.utils.image import resize_to_multiple
-from reptext_tpu.utils.text_span import find_token_span, render_text_spans, span_mask
+from reptext.utils.image import resize_to_multiple
+from reptext.utils.text_span import find_token_span, render_text_spans, span_mask
 
 
 def test_find_token_span():

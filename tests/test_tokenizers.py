@@ -11,9 +11,9 @@ import struct
 
 import pytest
 
-from reptext_tpu.text import CLIPBPETokenizer, SentencePieceUnigram
-from reptext_tpu.text.clip_bpe import bytes_to_unicode
-from reptext_tpu.text.spm import (
+from reptext.text import CLIPBPETokenizer, SentencePieceUnigram
+from reptext.text.clip_bpe import bytes_to_unicode
+from reptext.text.spm import (
     CONTROL,
     NORMAL,
     UNKNOWN,
@@ -200,8 +200,8 @@ def test_spm_normalize():
 
 def test_cli_tokenize_uses_vendored_tokenizers(tmp_path):
     """cli._tokenize must work from checkpoint files with no transformers."""
-    from reptext_tpu.cli import _tokenize
-    from reptext_tpu.configs import CLIPConfig, T5Config
+    from reptext.cli import _tokenize
+    from reptext.configs import CLIPConfig, T5Config
 
     (tmp_path / "tokenizer").mkdir()
     _tiny_clip_files(tmp_path / "tokenizer")

@@ -17,11 +17,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from reptext_tpu.configs import VAEConfig
-from reptext_tpu.io.convert import _double_block, _resnet, _single_block, _vae_attn
-from reptext_tpu.nn.blocks import JointTransformerBlock, SingleTransformerBlock
-from reptext_tpu.nn.vae import AttnBlock, ResnetBlock
-from reptext_tpu.ops.rope import rope_cos_sin, rope_cos_sin_half
+from reptext.configs import VAEConfig
+from reptext.io.convert import _double_block, _resnet, _single_block, _vae_attn
+from reptext.nn.blocks import JointTransformerBlock, SingleTransformerBlock
+from reptext.nn.vae import AttnBlock, ResnetBlock
+from reptext.ops.rope import rope_cos_sin, rope_cos_sin_half
 
 torch = pytest.importorskip("torch")
 nn = torch.nn

@@ -7,7 +7,7 @@ modules — RepText/controlnet_flux.py:216-413 for the ControlNet forward,
 RepText/pipeline_flux_controlnet.py:1092-1104 for the base-model invocation
 with residual injection), converted through the REAL converter paths
 (io/convert.py::convert_flux_transformer / convert_controlnet), and compared
-against the Flax models end to end. Covers:
+against the JAX models end to end. Covers:
 
 - base-only forward (time_text_embed + guidance + RoPE-from-ids + norm_out);
 - base + ControlNet with depth mismatch (pins the ceil-interval residual
@@ -39,10 +39,10 @@ from test_torch_parity_blocks import (  # noqa: E402
 
 import dataclasses  # noqa: E402
 
-from reptext_tpu.configs import ControlNetConfig, FluxConfig  # noqa: E402
-from reptext_tpu.io.convert import convert_controlnet, convert_flux_transformer  # noqa: E402
-from reptext_tpu.models.controlnet import RepTextControlNet  # noqa: E402
-from reptext_tpu.models.flux import FluxTransformer2D  # noqa: E402
+from reptext.configs import ControlNetConfig, FluxConfig  # noqa: E402
+from reptext.io.convert import convert_controlnet, convert_flux_transformer  # noqa: E402
+from reptext.models.controlnet import RepTextControlNet  # noqa: E402
+from reptext.models.flux import FluxTransformer2D  # noqa: E402
 
 # tiny geometry shared by both sides
 DIM, HEADS, HEAD_DIM = 64, 4, 16
@@ -507,9 +507,9 @@ def test_sampler_steps_parity(tmodels, jparams):
     (RepText/pipeline_flux_controlnet.py:1016-1130)."""
     import functools
 
-    from reptext_tpu.configs import PipelineConfig
-    from reptext_tpu.sampling.flow_match import build_schedule
-    from reptext_tpu.sampling.sampler import make_txt2img_sampler
+    from reptext.configs import PipelineConfig
+    from reptext.sampling.flow_match import build_schedule
+    from reptext.sampling.sampler import make_txt2img_sampler
 
     tflux, tcn = tmodels
     flux_params, cn_params = jparams

@@ -23,9 +23,9 @@ nn = torch.nn
 
 from test_torch_parity_blocks import TResnetBlock, TVaeAttn, _randomize  # noqa: E402
 
-from reptext_tpu.configs import VAEConfig  # noqa: E402
-from reptext_tpu.io.convert import convert_vae  # noqa: E402
-from reptext_tpu.nn.vae import Decoder, Encoder  # noqa: E402
+from reptext.configs import VAEConfig  # noqa: E402
+from reptext.io.convert import convert_vae  # noqa: E402
+from reptext.nn.vae import Decoder, Encoder  # noqa: E402
 
 CFG = dataclasses.replace(
     VAEConfig().tiny(),

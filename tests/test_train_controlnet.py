@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from reptext_tpu.configs import ControlNetConfig, FluxConfig
-from reptext_tpu.models import FluxTransformer2D, RepTextControlNet
-from reptext_tpu.ops.latents import prepare_latent_image_ids
-from reptext_tpu.sampling.train_controlnet import (
+from reptext.configs import ControlNetConfig, FluxConfig
+from reptext.models import FluxTransformer2D, RepTextControlNet
+from reptext.ops.latents import prepare_latent_image_ids
+from reptext.sampling.train_controlnet import (
     bind_frozen_base,
     controlnet_flow_match_loss,
     init_controlnet_training,
@@ -133,7 +133,7 @@ def test_train_step_decreases_loss_and_freezes_base():
 
 
 def test_elastic_trainer_compatibility():
-    from reptext_tpu.sampling.elastic import ElasticTrainer
+    from reptext.sampling.elastic import ElasticTrainer
 
     flux_apply, cn_apply, flux_params, cn_template, batch = _setup()
     opt = optax.adam(1e-3)

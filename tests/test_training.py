@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from reptext_tpu.configs import FluxConfig
-from reptext_tpu.models import FluxTransformer2D
-from reptext_tpu.ops.latents import prepare_latent_image_ids
-from reptext_tpu.sampling.training import flow_match_loss, make_train_step
+from reptext.configs import FluxConfig
+from reptext.models import FluxTransformer2D
+from reptext.ops.latents import prepare_latent_image_ids
+from reptext.sampling.training import flow_match_loss, make_train_step
 
 CFG = FluxConfig().tiny()
 

@@ -15,9 +15,9 @@ import pytest
 # e2e sampling / heavy-compile module: slow tier (pytest -m 'not slow' skips)
 pytestmark = pytest.mark.slow
 
-from reptext_tpu.configs import PipelineConfig
-from reptext_tpu.sampling import build_schedule
-from reptext_tpu.sampling.sampler import make_txt2img_sampler
+from reptext.configs import PipelineConfig
+from reptext.sampling import build_schedule
+from reptext.sampling.sampler import make_txt2img_sampler
 
 B, S, C, S_TXT, INNER = 1, 16, 8, 4, 8
 L_CN, LS_CN = 2, 3

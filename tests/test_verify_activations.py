@@ -8,15 +8,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from reptext_tpu.configs import FluxConfig
-from reptext_tpu.io.verify_activations import (
+from reptext.configs import FluxConfig
+from reptext.io.verify_activations import (
     capture_activations,
     diff_activations,
     load_activations,
     save_activations,
 )
-from reptext_tpu.models import FluxTransformer2D
-from reptext_tpu.ops.latents import prepare_latent_image_ids
+from reptext.models import FluxTransformer2D
+from reptext.ops.latents import prepare_latent_image_ids
 
 CFG = FluxConfig().tiny()
 

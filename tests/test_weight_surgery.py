@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from reptext_tpu.configs import ControlNetConfig, FluxConfig
-from reptext_tpu.models import FluxTransformer2D, RepTextControlNet
-from reptext_tpu.models.controlnet import params_from_transformer
-from reptext_tpu.ops.latents import prepare_latent_image_ids
+from reptext.configs import ControlNetConfig, FluxConfig
+from reptext.models import FluxTransformer2D, RepTextControlNet
+from reptext.models.controlnet import params_from_transformer
+from reptext.ops.latents import prepare_latent_image_ids
 
 FLUX_CFG = FluxConfig().tiny()          # 2 double + 4 single
 CN_CFG = ControlNetConfig().tiny()      # 1 double + 2 single
